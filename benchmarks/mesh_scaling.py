@@ -7,7 +7,7 @@ host's physical cores, so ABSOLUTE throughput means nothing; every
 section reports TIME RATIOS against its own 1-device (or replicated)
 baseline, which isolate the compiled program's sharding/collective
 overhead — the measurable stand-in for the BASELINE ≥80 % scaling
-target until a multi-chip pod is available (parallel/mesh.py is the
+target until a multi-GPU host is available (parallel/mesh.py is the
 same code either way).  Honest-reporting notes (r3 verdict):
 
 * strong (fixed TOTAL work, sharded n ways): devices share cores, so
@@ -306,7 +306,7 @@ def config5_section(jax, jnp):
     that the path RUNS at this scale; per-shard sizing documents why
     sharding exists (8 shards × one replica beat 8 full replicas on
     HBM: a 100M-entry 8-slot table is ~3.2 GB, so replicating it 8×
-    costs ~26 GB of pod HBM vs ~3.2 GB sharded)."""
+    costs ~26 GB of device memory vs ~3.2 GB sharded)."""
     import gc
 
     from kmers_anno_tpu.engine.apply_engine import apply_flat
@@ -395,7 +395,7 @@ def config5_section(jax, jnp):
         calls=called, subsample_identical=identical,
         note=("cpu-virtual mesh: proves the >=100M-entry sharded path "
               "runs and matches the unsharded probe; on real chips "
-              "routing pays when replicas would not fit pod HBM or "
+              "routing pays when replicas would not fit device memory or "
               "replica broadcast dominates — at this size a replica is "
               "~3.2 GB/chip vs ~0.4 GB/chip sharded over 8"))
 

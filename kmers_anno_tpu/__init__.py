@@ -1,7 +1,7 @@
-"""kmers_anno_tpu — a TPU-native k-mer genome annotation engine.
+"""kmers_anno_tpu — a JAX k-mer genome annotation engine for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of SEEDtk
-``kmers.anno`` (reference: /root/reference, Java).  The compute path encodes
+A from-scratch JAX/XLA re-implementation of the capabilities of SEEDtk
+``kmers.anno`` (a single-threaded Java tool).  The compute path encodes
 sequences as packed integer tensors, runs k-mer extraction / hashing / table
 probing / vote reduction as batched device kernels, and scales over a
 ``jax.sharding.Mesh`` with XLA collectives.  The host layer provides the GTO

@@ -3,8 +3,11 @@ subcommand, the rest are forwarded to its processor."""
 
 from __future__ import annotations
 
+import logging
 import sys
 from typing import Callable, Sequence
+
+log = logging.getLogger(__name__)
 
 
 def _lazy(module: str, cls: str) -> Callable:
@@ -72,4 +75,21 @@ def main(argv: Sequence[str] | None = None) -> int:
         return 2
     processor = entry[0]()
     processor.parse(f"kmers_anno_tpu {command}", rest)
+    _start_jax()
     return processor.run()
+
+
+def _start_jax() -> None:
+    """Compile cache, multi-process wiring (a no-op unless a coordinator
+    is configured; it must precede any other backend use), and one log
+    line naming the device, so a CPU fallback on a GPU host shows."""
+    import jax
+
+    from ..parallel.distributed import maybe_init_distributed
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    maybe_init_distributed()
+    dev = jax.devices()[0]
+    log.info("JAX platform %s (%s), %d device(s).", dev.platform,
+             dev.device_kind, jax.device_count())

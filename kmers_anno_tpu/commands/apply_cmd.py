@@ -157,9 +157,7 @@ class ApplyKmerProcessor(BaseProcessor):
 
     def _run_mesh(self, signatures, genomes, reporter) -> None:
         from ..engine.mesh_apply import MeshApplyEngine
-        from ..parallel.distributed import is_primary, maybe_init_distributed
 
-        maybe_init_distributed()
         n_data, n_table = self.mesh_shape
         engine = MeshApplyEngine(
             signatures, n_data, n_table, min_hits=self.min_hits,
@@ -177,9 +175,7 @@ class ApplyKmerProcessor(BaseProcessor):
 
     def _run_dna_mesh(self, signatures, genomes, reporter) -> None:
         from ..engine.mesh_apply import DnaMeshApplyEngine
-        from ..parallel.distributed import maybe_init_distributed
 
-        maybe_init_distributed()
         n_data, n_table = self.mesh_shape
         engine = DnaMeshApplyEngine(
             signatures, n_data, n_table, min_hits=self.min_hits,

@@ -1,6 +1,6 @@
 """Signature-table annotation engine (the ``apply`` hot path).
 
-Replicates ApplyKmerProcessor.java:113-155 with the TPU-native dataflow of
+Replicates ApplyKmerProcessor.java:113-155 with the device dataflow of
 the BASELINE north star.  Two device layouts:
 
 **Row layout (default, r4).**  Proteins are length-sorted and encoded into
@@ -9,11 +9,10 @@ the BASELINE north star.  Two device layouts:
     pack kmer windows → ONE row gather per window against the wide-bucket
     table (ops.widetable, max_probes == 1) → per-row vote reductions
 
-Everything is lane-major VPU work with zero scatters: the r3 flat-stream
-step spent ~50% of its time in scatter-based ``jax.ops.segment_*`` votes
-and another ~40% in multi-round narrow-bucket gathers; this layout
-measures ~7× faster end to end on the 1M-entry headline shape.  Length
-sorting bounds padding waste (make_row_batches), and row/width buckets
+Everything is dense row-wise work with zero scatters, where the
+flat-stream step spends its time in scatter-based ``jax.ops.segment_*``
+votes and multi-round narrow-bucket gathers.  Length sorting bounds
+padding waste (make_row_batches), and row/width buckets
 bound recompiles.
 
 **Flat-stream layout (big tables).**  Tables past the wide-table capacity
@@ -66,8 +65,7 @@ def apply_flat(table, codes, seg_ids, valid, min_hits, *,
     table:    (B, 24) uint32 bucketed signature table — or, when
               ``sliced`` is True, the (B, 24·max_probes) probe-window
               layout served by the sort-and-stream big-table probe
-              (ops.sliced_probe; ~2.7× the plain walk on 10M-entry
-              HBM-resident tables, r4 honest timing)
+              (ops.sliced_probe)
     codes:    (T,) uint8 concatenated protein codes (PROT_PAD padding)
     seg_ids:  (T,) int32 protein index per token (padding → n_seqs)
     valid:    (T,) bool — kmer window starting here stays inside one protein

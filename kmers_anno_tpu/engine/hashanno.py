@@ -16,7 +16,7 @@ classes (SURVEY.md §2b) with a device-probed design:
   (n_prototypes, n_proteins) common-count matrix, similarity is computed
   densely, and the per-protein best prototype is one masked row argmax.
   No sort, no host np.unique, no data-dependent shapes: everything is
-  scatter-add + elementwise + reduction, the shapes TPUs like.
+  scatter-add + elementwise + reduction.
   Similarity is the Jaccard similarity of distinct kmer sets |∩| / |∪| —
   the SEED convention (``ProteinKmers.distance`` is the matching Jaccard
   distance, SURVEY.md §2b ProteinKmers row; the 0.0125 default floor ≈
@@ -132,8 +132,8 @@ def _chunk_commons_body(owner_mat, ranks, proto_of, *, n_prot: int,
     The combinatorial work (CSR expansion + per-pair counting, the old
     host np.unique explosion) is one gather + one scatter-add here; the
     final Jaccard + argmax stays on the host in float64 so scores are
-    bit-identical to the reference's Java doubles (TPU f32 would reorder
-    near-ties).
+    bit-identical to the reference's Java doubles (device float32 would
+    reorder near-ties).
     """
     hit = ranks >= 0
     owners = jnp.where(hit[:, None],

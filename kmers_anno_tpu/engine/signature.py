@@ -1,7 +1,7 @@
 """Discriminating-kmer signature table: build, save/load, device packing.
 
 Replicates the two-pass ``build`` semantics (BuildKmerProcessor.java:137-223,
-SURVEY.md §3.2) with a TPU-native architecture: instead of a
+SURVEY.md §3.2) with a device architecture: instead of a
 ``HashMap<String, RoleCounter>``, kmers are packed into (lo, hi) uint32 key
 pairs and the good/bad role bookkeeping becomes a device **sort-based
 group-by** (jax.lax.sort + segmented min/max), which is how a hash-map
@@ -512,9 +512,8 @@ class SignatureTable:
                            packed_weights: bool = False):
         """Like device_table, but auto-selects the big-table layout: tables
         past SLICED_THRESHOLD_BYTES come back in the probe-window layout
-        for ops.sliced_probe.probe_table_sliced (measured ~2.7× the plain
-        gather walk on a 10M-entry HBM-resident table, r3/r4 honest
-        timing; prefer device_wide_table when the key count fits it).
+        for ops.sliced_probe.probe_table_sliced (prefer
+        device_wide_table when the key count fits it).
 
         returns (table jnp array, max_probes int, sliced bool)
         """

@@ -1,6 +1,6 @@
 // kan_host — native host-side runtime for kmers_anno_tpu.
 //
-// The TPU does the k-mer math; this library is the data loader that feeds
+// The device does the k-mer math; this library is the data loader that feeds
 // it: sequence encoding, fused flat-batch construction, and FASTA parsing.
 // The reference (SEEDtk kmers.anno) is a single-threaded Java tool whose
 // host loops are String-at-a-time (e.g. ApplyKmerProcessor.java:122-145);
@@ -368,8 +368,8 @@ void kan_build_free(void* h) { delete static_cast<KanBuilder*>(h); }
 // order[i] = original index of the i-th key in sorted order, ustarts[u] =
 // first sorted position of the u-th unique key; returns the unique count.
 // Equivalent to the device sort group-by in engine/projection.py
-// (_sort_with_payload) — used when device round-trips are slower than one
-// host sort (e.g. over a remote-tunnel device).  Ties sort by original
+// (_sort_with_payload) — used when one host sort is cheaper than a device
+// round trip.  Ties sort by original
 // index, matching jax.lax.sort's stability.
 
 int64_t kan_groupby(const uint32_t* lo, const uint32_t* hi, int64_t n,

@@ -1,4 +1,4 @@
-"""Device (JAX/XLA/Pallas) compute ops.
+"""Device (JAX/XLA) compute ops.
 
 All sequence data crosses the host/device boundary as packed integer arrays:
 
@@ -6,8 +6,8 @@ All sequence data crosses the host/device boundary as packed integer arrays:
 * DNA      — uint8 codes (t,c,a,g → 0..3 NCBI order, ambiguous → 4, pad → 5)
 * k-mers   — two uint32 words (5 bits/char: chars 0..5 in ``lo``, 6..11 in
   ``hi``), so exact kmer *text* identity is preserved (not just a hash);
-  K ≤ 12 fits the two words.  TPUs are 32-bit machines, so two uint32 lanes
-  beat emulated uint64 end to end.
+  K ≤ 12 fits the two words, which keeps every device op in 32-bit
+  integers (JAX's default width, no x64 mode needed).
 
 Modules:
 

@@ -6,7 +6,10 @@ loops and inserts every kmer substring into a HashMap.  Here the whole
 contig is translated at every codon start in one LUT gather
 (ops.translate.sliding_translate), the three frame proteins are stride-3
 slices, and kmers are packed/validated as vectorized windows — one jitted
-program per padded contig width.
+program per padded contig width.  ``scan_stream`` does the same translate
+and pack for a whole genome's concatenated strands at base granularity
+(the projection engine's device path), with ``frame_kmers_by_base`` as
+its per-strand reference.
 
 Semantics preserved exactly:
 
@@ -27,7 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .encode import DNA_PAD, encode_dna
+from .encode import DNA_PAD, PROT_PAD, PROT_STOP, PROT_X, encode_dna
 from .kmers import kmer_valid_mask, pack_kmer_windows
 from .translate import codon_lut, sliding_translate
 
@@ -65,47 +68,55 @@ def _strand_frame_kmers(dna_codes, length, k: int, lut):
     return jnp.stack(los), jnp.stack(his), jnp.stack(valids)
 
 
-def _use_pallas() -> bool:
-    """Fused Pallas scanner on real TPUs; XLA elsewhere (KAN_PALLAS=1/0
-    overrides)."""
-    import os
-    flag = os.environ.get("KAN_PALLAS")
-    if flag in ("0", "1"):
-        return flag == "1"
-    import jax
-    return jax.default_backend() not in ("cpu",)
+# Stream lengths are rounded to whole blocks of this many bases (and the
+# block count to a few buckets) so one compiled scan serves many genomes.
+SCAN_BLOCK = 8192
 
 
-def extract_contig_kmers_fused(contig_seq: str, k: int, gc: int,
-                               interpret: bool = False):
-    """extract_contig_kmers via the fused Pallas scanner
-    (ops.pallas_contig) — identical output set, base-major order."""
-    from .pallas_contig import strand_kmers_pallas
+@partial(jax.jit, static_argnames=("k",))
+def scan_stream(stream, lut, k: int):
+    """Base-granular 6-frame scan of a concatenated DNA stream.
 
-    codes = encode_dna(contig_seq)
+    stream: (W,) uint8 DNA codes; segments (contig strands in reading
+            order) are separated by ≥ 3k-1 ambiguity codes (value ≥ 4) so
+            no window crosses one.
+    lut:    (65,) codon LUT (ops.translate.codon_lut).
+    returns flat (lo, hi, bad) of length n = W - 3k + 1: position p holds
+    the kmer whose amino acids sit at codon starts p, p+3, …, p+3(k-1),
+    packed like ops.kmers, and ``bad`` marks windows holding 'X', '*' or
+    an ambiguous codon.  Frame and Q1 bookkeeping (p % 3, p // 3) is the
+    caller's; positions past a segment's last window are masked there.
+    """
+    aa = sliding_translate(stream, lut)              # (W-2,)
+    n = stream.shape[0] - 3 * k + 1
+    lo = jnp.zeros(n, jnp.int32)
+    hi = jnp.zeros(n, jnp.int32)
+    bad = jnp.zeros(n, jnp.bool_)
+    for j in range(k):
+        a = aa[3 * j: 3 * j + n].astype(jnp.int32)
+        if j < 6:
+            lo = lo | (a << (5 * j))
+        else:
+            hi = hi | (a << (5 * (j - 6)))
+        bad = bad | (a == PROT_X) | (a == PROT_STOP) | (a >= PROT_PAD)
+    return lo, hi, bad
+
+
+def frame_kmers_by_base(codes: np.ndarray, k: int, gc: int):
+    """Reference for :func:`scan_stream` on ONE strand: the
+    :func:`_strand_frame_kmers` output re-laid out base-major (entry
+    p = 3q + f is frame f's kmer at frame position q), cut to the
+    max(L - 3k + 1, 0) positions that hold a whole window.
+
+    returns np arrays (lo, hi) uint32 and ``valid`` bool (Q1 + Q2)."""
     length = len(codes)
-    rc_codes = np.where(codes < 4, codes ^ 2, codes)[::-1].copy()
-    out_lo, out_hi, out_left, out_strand = [], [], [], []
-    for strand, seq in ((0, codes), (1, rc_codes)):
-        lo, hi, bad = strand_kmers_pallas(seq, k, gc, interpret=interpret)
-        p = np.arange(len(lo), dtype=np.int64)
-        f = p % 3                       # 0-based frame
-        flen = (length - f) // 3        # frame protein length
-        valid = ((p // 3) < flen - k) & ~bad        # Q1 strict drop-last
-        v = np.flatnonzero(valid)
-        # KmerPosition: plus left = pos*3 + frame1 = p + 1 (Java 60-62);
-        # minus left = (L - 3K + 2) - (p + 1) (Java 78-86, Q11)
-        left = v + 1 if strand == 0 else (length - 3 * k + 1) - v
-        out_lo.append(lo[v])
-        out_hi.append(hi[v])
-        out_left.append(left.astype(np.int32))
-        out_strand.append(np.full(len(v), strand, np.int8))
-    return {
-        "lo": np.concatenate(out_lo),
-        "hi": np.concatenate(out_hi),
-        "left": np.concatenate(out_left),
-        "strand": np.concatenate(out_strand),
-    }
+    padded = np.full(_bucket_width(length), DNA_PAD, np.uint8)
+    padded[:length] = codes
+    lo, hi, valid = _strand_frame_kmers(
+        jnp.asarray(padded), jnp.int32(length), k,
+        jnp.asarray(codon_lut(gc)))
+    n = max(length - 3 * k + 1, 0)
+    return tuple(np.asarray(x).T.reshape(-1)[:n] for x in (lo, hi, valid))
 
 
 def extract_contig_kmers(contig_seq: str, k: int, gc: int):
@@ -114,10 +125,6 @@ def extract_contig_kmers(contig_seq: str, k: int, gc: int):
     returns dict with np arrays lo, hi, left (1-based), strand ('+'=0,
     '-'=1), all shape (N,).
     """
-    if _use_pallas():
-        import jax
-        return extract_contig_kmers_fused(
-            contig_seq, k, gc, interpret=jax.default_backend() == "cpu")
     codes = encode_dna(contig_seq)
     length = len(codes)
     width = _bucket_width(length)

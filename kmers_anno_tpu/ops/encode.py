@@ -1,6 +1,6 @@
 """Host-side string ↔ integer-array codecs (NumPy).
 
-The reference manipulates Java Strings everywhere; the TPU build encodes
+The reference manipulates Java Strings everywhere; this engine encodes
 sequences once on the host and keeps them as integer tensors on device.
 Code assignments are chosen so device-side translation, packing and
 filtering are pure arithmetic:

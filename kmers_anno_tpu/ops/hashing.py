@@ -1,7 +1,7 @@
 """32-bit hash mixing of the two kmer key words (device + host-identical).
 
-TPUs are 32-bit machines; the table hash is a murmur3-style finalizer over
-the (lo, hi) uint32 pair.  The same arithmetic runs under NumPy (host) and
+The table hash is a murmur3-style finalizer over the (lo, hi) uint32 pair,
+kept in 32-bit arithmetic (JAX's default integer width).  The same arithmetic runs under NumPy (host) and
 jax.numpy (device) so slot assignments agree everywhere — required for the
 sharded-table ``hash % num_shards`` routing (SURVEY.md §2d, §5.8).
 """

@@ -2,17 +2,15 @@
 
 This replaces the reference's ``HashMap<String, String>`` kmer database
 (ApplyKmerProcessor.java:101-110) with the structure the BASELINE north star
-prescribes, shaped for the TPU memory system: keys live in **buckets of 8
-slots**, stored as one flat uint32 row per bucket
+prescribes: keys live in **buckets of 8 slots**, stored as one flat uint32
+row per bucket
 
     table[bucket] = [lo×8 | hi×8 | value×8]        (24 × uint32 = 96 B)
 
-so one probe step is ONE row gather (TPU gathers run at tens of G elem/s —
-measured 42 G elem/s on v5e) followed by 8 vectorized lane compares.  With a
-0.5 load factor (≈4 keys/bucket expected), almost every key is found in the
-first bucket and the longest walk is 2-3 buckets — versus ~46 probe rounds
-for classic 1-slot linear probing on the same data, which is why the
-bucketed layout is ~20× faster end to end.
+so one probe step is ONE row gather followed by 8 vectorized compares.
+With a 0.5 load factor (≈4 keys/bucket expected), almost every key is
+found in the first bucket and the longest walk is 2-3 buckets — versus ~46
+probe rounds for classic 1-slot linear probing on the same data.
 
 Collision policy: a key whose home bucket ``hash & (B-1)`` is full walks to
 the next bucket.  The build fills buckets round by round (all keys try

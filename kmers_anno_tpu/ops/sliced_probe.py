@@ -1,32 +1,16 @@
-"""Bucket-sorted sliced probe: full-bandwidth lookups on HBM-size tables.
+"""Bucket-sorted sliced probe for tables far larger than the cache.
 
 ``ops.hashtable.probe_table`` expresses the bucket walk as one XLA row
-gather.  Measured on TPU v5e (r4, host-synced chained-batch timing): the
-gather is latency-bound at ~166 M rows/s regardless of row width for
-tables of ≤ ~262k rows, then collapses to ~54 M rows/s at 524k+ rows
-(BASELINE config 4: 10M entries ≈ 0.4 GB) — every random access pays
-full HBM latency once the row count leaves the fast zone.
-
-Two latency-hiding designs were evaluated on hardware:
-
-* per-query async DMA (a Pallas kernel, r2): dead end — DMA descriptors
-  issue from the scalar core at tens of M/s, i.e. no faster than the XLA
-  gather it was meant to replace;
-* THIS design: convert random HBM access into sequential HBM streaming +
-  random on-chip access.  Sort queries by home bucket, then scan the
-  table in on-chip-size slices; each slice is one big sequential read
-  and each query gathers its bucket row from the *slice*, which runs at
-  the fast small-row-count gather rate.
-
-Honest r3/r4 numbers (host-synced chained-batch timing; the r1/r2 docs
-here claimed ~450 M lookups/s / ~19×, which came from async timing that
-overstated throughput ~20-30×): on a 10M-entry windowed table (~0.8 GB)
-the sliced path measures ~72 M lookups/s vs ~26 M for the plain walk —
-~2.7×, dominated by the two 4M-element device sorts (a 2.4M-element sort
-measures ~8.4 ms on v5e).  On mid-size tables (≤ ~75 MB, ≤ 262k rows)
-the plain gather is already latency-bound at ~166 M rows/s and the wide-
-bucket single-gather layout (ops.widetable) beats both — this module is
-the ≥ ~4M-key fallback only.
+gather: every query pays a random device-memory access once the table
+outgrows the on-chip cache.  This path turns random access into
+sequential streaming plus random access within a cache-size slice: sort
+queries by home bucket, then scan the table in slices; each slice is one
+sequential read and each query gathers its bucket row from the *slice*.
+Its cost is two N-element device sorts (one to group queries by bucket,
+one to restore their order — the second is skipped in payload mode).
+The crossover against the plain gather (``SLICED_THRESHOLD_BYTES``) and
+the slice size were tuned on the chip this engine was first built for
+and are unmeasured on the H100.
 
 The probe walk (up to ``max_probes`` consecutive buckets, wrapping mod B)
 is folded into the row width instead of extra gathers: ``windowed_table``
@@ -35,14 +19,12 @@ one gather resolves the whole walk and a slice is self-contained.
 
 Skew safety: queries are assigned to slices by hash, so slice populations
 concentrate tightly around n/G; the per-slice query window is padded to
-``qwin`` ≈ 2× the mean (power of two).  If an adversarial/duplicate-heavy
-batch overflows a window, the kernel detects it and falls back to the
-plain full-table gather walk *inside* jit (lax.cond) — always correct,
-slow only on inputs no real proteome produces.
+``qwin`` ≈ 1.25× the mean.  If an adversarial/duplicate-heavy batch
+overflows a window, the kernel detects it and falls back to the plain
+full-table gather walk *inside* jit (lax.cond) — always correct, slow
+only on inputs no real proteome produces.
 
 Reference analogue: the HashMap walk in ApplyKmerProcessor.java:122-145.
-There is no Java equivalent of this memory-system shaping — that is the
-point of the TPU build.
 """
 
 from __future__ import annotations
@@ -57,13 +39,11 @@ from .hashing import mix_kmer
 from .hashtable import BUCKET
 
 ROW = 3 * BUCKET          # uint32 words per bucket row
-MAX_SLICE_ROWS = 1 << 16  # 65536 rows/slice: 12.6 MB at max_probes 2,
-                          # the top of the measured fast-gather zone
-# tables larger than this probe faster through the sliced path.
-# Measured on v5e (r4): the plain gather holds ~166M rows/s up to ~262k
-# rows (25 MB at 8 slots), drops to ~54M rows/s by 524k rows; the sliced
-# path is a flat ~72M lookups/s (sort-dominated).  Tables small enough
-# for the wide-bucket layout (ops.widetable, ≤ ~3M keys) never get here.
+MAX_SLICE_ROWS = 1 << 16  # 65536 rows/slice: 12.6 MB at max_probes 2
+# Tables larger than this take the sliced path.  Both constants are
+# inherited from the engine's first chip and unmeasured on the H100 (its
+# L2 is 50 MB).  Tables small enough for the wide-bucket layout
+# (ops.widetable, ≤ ~3M keys) never get here.
 SLICED_THRESHOLD_BYTES = 48 << 20
 
 
@@ -84,8 +64,7 @@ def _pow2(n: int) -> int:
 def _compare_window(rows, ql, qh, max_probes: int):
     """Vectorized early-stop compare over a gathered (Q, 24·P) window.
     Payloads are viewed as int32 (bit-identical: packed payloads keep bit
-    31 clear, and Mosaic/TPU reductions over unsigned ints are unsupported
-    anyway)."""
+    31 clear)."""
     val = jnp.full(rows.shape[:-1], -1, jnp.int32)
     for i in range(max_probes):
         tlo = rows[..., i * ROW + 0 * BUCKET: i * ROW + 1 * BUCKET]
@@ -113,53 +92,15 @@ def probe_windowed(wtable, key_lo, key_hi, valid, max_probes: int):
     return jnp.where(valid.reshape(-1), val, -1).reshape(shape)
 
 
-MXU_SLICE_ROWS = 512      # rows per one-hot matmul slice
-
-
-def _mxu_gather(slab_bytes, lb, s_rows: int):
-    """Gather rows from a VMEM-size slab with an MXU one-hot matmul.
-
-    The XLA row gather issues one descriptor per row (~166M rows/s,
-    latency-bound); a (Q, R) one-hot × (R, 4·W) byte-plane matmul moves
-    the same rows through the systolic array at MXU rates instead.
-    Measured on v5e (r4, host-synced): end-to-end NEUTRAL vs the slice
-    gather (72.9 vs 72.8 M lookups/s on the 10M-entry shape) — the
-    sliced probe is bounded by its two 4M-element sorts and the
-    per-slice loop overhead, not by the row gather, so the MXU path is
-    kept as an option (``mxu=``) but buys nothing until the sort cost
-    is attacked.  Exactness: the one-hot is exact in bf16, each byte
-    plane value ≤ 255 is exact in bf16, and each output element has
-    exactly one nonzero product term, so the f32 accumulation is exact.
-
-    slab_bytes: (R, 4·W) bf16 byte planes (plane-major: byte b of word
-                w sits at column b·W + w)
-    lb:         (Q,) int32 row index per query (clipped to [0, R))
-    returns     (Q, W) uint32 reassembled rows
-    """
-    w4 = slab_bytes.shape[1]
-    w = w4 // 4
-    onehot = (lb[:, None] == jax.lax.broadcasted_iota(
-        jnp.int32, (1, s_rows), 1)).astype(jnp.bfloat16)
-    planes = jax.lax.dot_general(
-        onehot, slab_bytes, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    p = [planes[:, i * w: (i + 1) * w].astype(jnp.uint32)
-         for i in range(4)]
-    return (p[0] | (p[1] << 8) | (p[2] << 16) | (p[3] << 24))
-
-
-@partial(jax.jit, static_argnames=("max_probes", "mxu"))
+@partial(jax.jit, static_argnames=("max_probes",))
 def probe_table_sliced(wtable, key_lo, key_hi, valid, max_probes: int,
-                       mxu: bool = False, payload=None):
+                       payload=None):
     """Sort-and-stream probe of a windowed table (the big-table hot path).
 
     wtable: (B, 24·max_probes) uint32 from ``windowed_table`` (device-
             resident; B a power of two)
     key_lo/key_hi: (N,) uint32 query keys
     valid:  (N,) bool — invalid queries return -1
-    mxu:    gather slice rows through the one-hot matmul (_mxu_gather)
-            instead of the XLA row gather (measured neutral — see
-            _mxu_gather; the probe is sort-bound)
     payload: optional (N,) int32 rider (e.g. segment ids).  When given,
             the restore sort is SKIPPED and the return is
             (values, payload) in bucket-sorted order — the right mode
@@ -171,10 +112,7 @@ def probe_table_sliced(wtable, key_lo, key_hi, valid, max_probes: int,
     n = key_lo.shape[0]
     nb = wtable.shape[0]
     roww = wtable.shape[1]
-    # the one-hot matmul only pays when each slice sees a full MXU tile
-    # of queries; thin batches keep the plain slice gather
-    mxu = mxu and n // max(nb // MXU_SLICE_ROWS, 1) >= 512
-    s_rows = min(nb, MXU_SLICE_ROWS if mxu else MAX_SLICE_ROWS)
+    s_rows = min(nb, MAX_SLICE_ROWS)
     n_slices = nb // s_rows
     # hash-uniform slice populations concentrate at n/G with std ~sqrt:
     # 1.25× the mean is a huge margin, and every padded row is a wasted
@@ -207,14 +145,7 @@ def probe_table_sliced(wtable, key_lo, key_hi, valid, max_probes: int,
             qh = jax.lax.dynamic_slice(hi_p, (start,), (qwin,))
             sl = jax.lax.dynamic_slice(wtable, (g * s_rows, 0),
                                        (s_rows, roww))
-            lbc = jnp.clip(lb, 0, s_rows - 1)
-            if mxu:
-                sl_b = jnp.concatenate(
-                    [(sl >> jnp.uint32(8 * i)) & jnp.uint32(0xFF)
-                     for i in range(4)], axis=1).astype(jnp.bfloat16)
-                rows = _mxu_gather(sl_b, lbc, s_rows)
-            else:
-                rows = sl[lbc]
+            rows = sl[jnp.clip(lb, 0, s_rows - 1)]
             val = _compare_window(rows, ql, qh, max_probes)
             # windows overlap forward only: garbage tail beyond this
             # slice's real count is rewritten by later (higher-g) steps

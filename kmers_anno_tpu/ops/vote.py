@@ -200,8 +200,8 @@ def weighted_vote_chunked(roles: jnp.ndarray, weights: jnp.ndarray,
     """Dense weighted vote in role blocks, for huge role spaces.
 
     When n_seqs × n_roles exceeds DENSE_VOTE_LIMIT a single dense tally
-    matrix would not fit; the sort-based fallback is known to be
-    pathologically slow on TPU (r2 finding).  This path sweeps the role
+    matrix would not fit, and a sort-based vote costs a full sort per
+    batch.  This path sweeps the role
     space in blocks of ``r_blk`` roles, computing a dense tally per block
     and keeping a running (best tally, best role).  Ties: a strictly
     greater tally is required to displace the incumbent, and jnp.argmax

@@ -1,33 +1,28 @@
 """Wide-bucket single-gather hash table: the fast-path probe layout.
 
 Replaces the reference's ``HashMap<String, String>`` kmer database walk
-(ApplyKmerProcessor.java:101-110, 122-145) with a layout derived from how
-this chip actually gathers (all numbers measured on TPU v5e through the
-r4 host-synced chained-batch harness):
+(ApplyKmerProcessor.java:101-110, 122-145) with a layout built around one
+idea: probe cost is the *number of row gathers*, and a wide row costs
+little more than a narrow one.
 
-* XLA row gathers are **latency-bound, not bandwidth-bound**: ~166 M
-  rows/s regardless of row width (24 vs 128 words is the same rate), flat
-  across table sizes as long as the table has ≤ ~262k rows.  Probe cost
-  is therefore *number of gathers*, full stop.
-* Narrow buckets force walks: the r1-r3 8-slot layout needed
+* Narrow buckets force walks: the 8-slot layout (ops.hashtable) needs
   ``max_probes`` = 2-3 row gathers per lookup.  This layout uses **24
-  slots per bucket** (row = 72 uint32 = 288 B — width is free) and the
-  build **retries hash salts until no bucket overflows** (mean occupancy
-  is kept ≤ 8, so P(Poisson(8) > 24) ≈ 2e-7 per bucket and almost every
-  salt works).  Result: ``max_probes == 1`` — every lookup is exactly ONE
-  row gather.
-* Post-gather compares run **lane-major**: the gathered (Q, 72) rows are
-  retiled to (Q/128, 72, 128) so the 24 slot compares use all 128 VPU
-  lanes.  The slot-minor form wastes 15/16 lanes and measures ~1.9×
-  slower end to end.
+  slots per bucket** (row = 72 uint32 = 288 B) and the build **retries
+  hash salts until no bucket overflows** (mean occupancy is kept ≤ 8, so
+  P(Poisson(8) > 24) ≈ 2e-7 per bucket and almost every salt works).
+  Result: ``max_probes == 1`` — every lookup is exactly ONE row gather.
+* Post-gather compares are retiled slot-major: the gathered (Q, 72) rows
+  become (Q/128, 72, 128) so each slot compare runs over 128 contiguous
+  queries.
 
-Measured: 182 M lookups/s on a 1M-entry table (37.7 MB) vs 36 M/s for
-the r3 8-slot walk — with the same bit-exact text-equality semantics
-(packed keys compared in full, no fingerprinting).
+Keys are compared in full (bit-exact text-equality semantics, no
+fingerprinting).
 
-Capacity: rows ≤ MAX_WIDE_ROWS keeps the gather in the fast zone, so the
-layout serves tables up to ~3M keys (≥ BASELINE configs 1/2, the 1M-entry
-headline shape); bigger tables fall back to ops.sliced_probe.
+Capacity: rows ≤ MAX_WIDE_ROWS keeps the table small enough for the
+single-gather layout (up to ~3M keys, ≥ BASELINE configs 1/2, the
+1M-entry headline shape); bigger tables fall back to ops.sliced_probe.
+``MAX_WIDE_ROWS`` and the 128-wide retile are inherited from the chip the
+engine was first built for and are unmeasured on the H100.
 """
 
 from __future__ import annotations
@@ -45,7 +40,7 @@ log = logging.getLogger(__name__)
 
 EMPTY = np.uint32(0xFFFFFFFF)   # no packed kmer key word is all-ones
 SLOTS = 24                      # slots per bucket (row = 3*SLOTS words)
-MAX_WIDE_ROWS = 1 << 18         # measured single-gather fast-zone cap
+MAX_WIDE_ROWS = 1 << 18         # single-gather row cap (inherited)
 TARGET_MU = 8.0                 # target mean keys/bucket (load 1/3)
 MAX_MU = 12.0                   # absolute cap before falling back
 _LANES = 128
@@ -207,7 +202,7 @@ def probe_wide(table, key_lo, key_hi, valid, salt, max_probes: int = 1):
     returns (...,) int32 — stored payload, or -1 on miss/invalid
 
     One row gather per probe round (max_probes is 1 for overflow-free
-    builds), compares retiled lane-major so all 128 VPU lanes work.
+    builds), compares retiled slot-major over 128-query tiles.
     """
     n_rows = table.shape[0]
     shape = key_lo.shape

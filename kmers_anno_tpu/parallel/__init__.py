@@ -1,7 +1,7 @@
 """Multi-chip scaling: mesh construction + sharded annotation steps.
 
 The reference is single-process/single-host (SURVEY.md §2d); this package is
-the TPU-native replacement: a 2-axis ``jax.sharding.Mesh`` ``(data, table)``
+the device replacement: a 2-axis ``jax.sharding.Mesh`` ``(data, table)``
 with XLA collectives, plus jax.distributed multi-host wiring.
 
 * data axis — genome/protein batches shard across chips (DP).

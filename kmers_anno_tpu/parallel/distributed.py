@@ -1,21 +1,22 @@
 """Multi-host mesh initialization (jax.distributed).
 
-The reference is single-JVM (SURVEY.md §2d: no MPI/NCCL/sockets); the TPU
-framework scales across hosts with JAX's distributed runtime: every host
-runs the SAME program, ``jax.distributed.initialize`` wires them into one
-system, and the (data, table) mesh then spans all chips of all hosts with
-XLA collectives riding ICI within a slice and DCN across slices.
+The reference is single-JVM (SURVEY.md §2d: no MPI/NCCL/sockets); this
+engine scales across processes with JAX's distributed runtime: every
+process runs the SAME program, ``jax.distributed.initialize`` wires them
+into one system, and the (data, table) mesh then spans the devices of all
+processes, with XLA collectives (NCCL on GPUs) between them.  One process
+driving all local cards needs none of this.
 
 Configuration follows the standard JAX environment contract so launchers
-(GKE, xpk, mpirun) work unchanged:
+(mpirun, Slurm, Kubernetes) work unchanged:
 
 * ``KAN_COORDINATOR`` / ``JAX_COORDINATOR_ADDRESS`` — "host:port" of
   process 0.  Unset ⇒ single-host mode, no-op.
 * ``KAN_NUM_PROCESSES`` / ``JAX_NUM_PROCESSES`` — world size.
 * ``KAN_PROCESS_ID`` / ``JAX_PROCESS_ID`` — this process's rank.
 
-On TPU pods with up-to-date runtimes all three are auto-detected and
-``initialize()`` needs no arguments; explicit env vars win when present.
+Set all three explicitly: a plain GPU host offers JAX no cluster to
+auto-detect.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Three table layouts (SURVEY.md §5.8):
 
 * **Replicated table** — one copy per chip; the probe is a local gather and
   the only collective is metric reduction.  Right up to ~100M entries
-  (~1.3 GB of bucket rows at 0.5 load factor fits HBM comfortably).
+  (~1.3 GB of bucket rows at 0.5 load factor fits device memory
+  comfortably).
 * **Broadcast-sharded table** (``sharded_apply_step``) — keys are
   partitioned host-side by ``mix_kmer(key) % n_shards`` into per-shard
   bucketed open-addressing tables of identical bucket count B, stacked
@@ -25,7 +26,7 @@ Three table layouts (SURVEY.md §5.8):
   ``psum``/``pmin``/``pmax`` of the per-segment tallies over the ``table``
   axis — no reverse all_to_all of per-token hits is ever needed.  This
   divides both table memory AND probe compute by n_shards; the wire cost is
-  one 12-byte (lo, hi, seg) record per kmer riding ICI.
+  one 12-byte (lo, hi, seg) record per kmer over the interconnect.
 
 Both steps are built with ``jax.shard_map`` over an explicit Mesh so the
 driver can compile them on a virtual CPU mesh (tests) and on real chips
@@ -124,7 +125,7 @@ def _weighted_tally(payload, valid, seg_ids, n_seqs, n_roles, psum_axis,
     tallies, unlike unanimity, need the summed mass per (seg, role) before
     any max is taken).  Dense when (n_seqs × n_roles) fits
     DENSE_VOTE_LIMIT, role-blocked fori_loop otherwise (psum per block) —
-    the sort-based path is never used (r2: pathological on TPU).
+    the sort-based path is never used.
     """
     roles, weights = split_packed_payload(payload)
     hit = valid & (roles >= 0)
